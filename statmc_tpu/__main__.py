@@ -15,7 +15,7 @@ import sys
 def main(argv=None):
     ap = argparse.ArgumentParser(
         prog="statmc_tpu",
-        description="TPU-native statistical Monte Carlo renderer",
+        description="Statistical Monte Carlo renderer (JAX, wavefront)",
     )
     ap.add_argument("scene", help="pbrt scene description file")
     ap.add_argument("--writeimages", action="store_true",

@@ -1,15 +1,14 @@
-"""Fused dense intersection: ray x triangle testing as MXU matmuls.
+"""Fused dense intersection: ray x triangle tiles as bilinear forms.
 
 Replaces the reference's per-ray BVH walk (src/accelerators/bvh.cpp:707+,
-pointer-chasing over LinearBVHNodes) for small/medium scenes with a
-TPU-shaped formulation: a ray-triangle test is a *bilinear form* in
-Plucker coordinates, so testing a ray tile against a triangle tile is
-two small-K matmuls on the systolic array
+pointer-chasing over LinearBVHNodes) for small/medium scenes.  A
+ray-triangle test is a *bilinear form* in Plucker coordinates, so
+testing a ray tile against a triangle tile is two small-K products
 
     w   [3*Tt, Rt] = edge_rows [3*Tt, 8] @ [d; oxd]    (edge side products)
     n/d [2*Tt, Rt] = plane_rows[2*Tt, 8] @ [d; o; 1]   (plane numer/denom)
 
-followed by a cheap VPU epilogue (sign tests + plane-t + running min).
+followed by a cheap epilogue (sign tests + plane-t + running min).
 Per (ray, tri) pair the three edge "side" products decide inside/outside
 and one plane equation yields t:
 
@@ -17,32 +16,30 @@ and one plane equation yields t:
     hit  = all w_k same sign
     t    = (n.v0 - n.o) / (n.d),   n = e1 x e2
 
-The Pallas kernel keeps the whole packed triangle table in VMEM and
-streams ray tiles through it, so (unlike the XLA dense path in
-render/intersect.py) no [R, T] temporary ever touches HBM and there is
-no serial lockstep walk at all -- the ~150-step while_loop of
-accel/onehot.py collapses into ceil(T/Tt) independent matmuls.
+The GPU kernel (Pallas, Triton route) gives each program RAY_BLOCK
+rays, keeps their running (t, id) in registers and streams the packed
+triangle table through them, evaluating the forms as f32 FMAs on
+[_CHUNK, RAY_BLOCK] register tiles: no [R, T] temporary ever touches
+device memory.  The plain reference (_intersect_ref, the CPU path)
+computes the same forms as dots over the whole ray batch.
 
 Tile culling (the BVH's job, re-shaped): triangles are Morton-ordered
 so each TRI_TILE is spatially tight; per tile a conservative AABB is
-kept in SMEM and each kernel step first slab-tests the whole ray tile
-against it on the VPU ([1, Rt] vectors, ~20 ops).  The expensive
-dot+epilogue runs under @pl.when only if ANY ray can still hit the box
-closer than its current best -- conservative, so results are identical
-to the unculled form.  Ray batches arrive in pixel order (primary and
-shadow rays are coherent), which is what makes the any() predicate
-selective.
+kept and the kernel first slab-tests its ray block against it.  The
+forms and epilogue run only if ANY ray can still hit the box closer
+than its current best -- conservative, so results are identical to the
+unculled form.  Ray batches arrive in pixel order (primary and shadow
+rays are coherent), which is what makes the any() predicate selective.
 
-Precision: dots run at Precision.HIGHEST (6-pass bf16 decomposition,
-~f32-exact; Mosaic lowers only DEFAULT/HIGHEST, and single-pass bf16
-is far too lossy for the sign tests).  The sign test accepts both
-orientations and treats w == 0 as inside on either side, so shared-edge
-hits resolve to whichever triangle is nearer (cf. reference watertight
-test, src/shapes/triangle.cpp:160+, which matters at CPU f64 only).
+Precision: every product is IEEE f32 (the reference's dots run at
+Precision.HIGHEST; TF32 or bf16 keep too few mantissa bits for the sign
+tests).  The sign test accepts both orientations and treats w == 0 as
+inside on either side, so shared-edge hits resolve to whichever
+triangle is nearer (cf. reference watertight test,
+src/shapes/triangle.cpp:160+, which matters at CPU f64 only).
 
-Measured v5e crossover: this path wins up to FUSED_MAX_TRIS; larger
-scenes fall back to the packed-table walk (accel/onehot.py) until the
-two-level cluster scheme lands.
+Scenes above FUSED_MAX_TRIS go to the two-level worklist walk
+(accel/twolevel.py).
 """
 from __future__ import annotations
 
@@ -53,15 +50,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ..core import math as cm
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
-RAY_TILE = 512  # lanes per kernel step
-TRI_TILE = 256  # triangles per inner step
-FUSED_MAX_TRIS = 16384  # 5*8*4 B/tri -> 2.6 MB VMEM table cap
-_K = 8  # ray feature rows per dot (padded to a sublane multiple)
-_PRECISION = jax.lax.Precision.HIGHEST  # 6-pass bf16 decomposition
-# (Mosaic supports only DEFAULT/HIGHEST; DEFAULT is single-pass bf16 and
-# far too lossy for the sign tests)
+from ..core.backend import use_kernel
+
+TRI_TILE = 64  # triangles per table tile (cull granularity)
+FUSED_MAX_TRIS = 16384  # above: accel/twolevel.py
+RAY_BLOCK = 128  # rays per kernel program
+_CHUNK = 16  # triangles per [_CHUNK, RAY_BLOCK] register tile
+_REF_TILES = 4  # table tiles per step of the plain reference's scan
+_K = 8  # feature columns per triangle row
 
 
 def _morton(cent: np.ndarray) -> np.ndarray:
@@ -162,197 +161,217 @@ class FusedTris(NamedTuple):
         )
 
 
-def ray_features(o, d):
-    """[R,3] origins/directions -> ([R,8] edge rows, [R,8] plane rows,
-    [R,8] bbox rows [inv_d, o, 0, 0])."""
+def ray_inv(d):
+    """Safe reciprocal direction for slab tests.  The degenerate-component
+    fallback keeps the SIGN of d (a tiny negative component must yield a
+    large NEGATIVE inverse, or the slab test collapses to tn=tf=0 and the
+    cull stops being conservative)."""
+    return jnp.where(jnp.abs(d) > 1e-12, 1.0 / jnp.where(d == 0, 1.0, d),
+                     jnp.where(d < 0, -1e12, 1e12))
+
+
+def tri_forms(col, d, m, o):
+    """The five bilinear forms of a triangle set against a ray set, as
+    f32 multiply-adds in one fixed order shared by every intersector
+    (reference and kernels, both levels), so they agree bit for bit
+    wherever the compiler contracts alike.
+
+    col(form, f): [n, 1] column f of table form 0-2 (edge k: f 0:3 =
+    cross(a_k, b_k), 3:6 = b_k - a_k), 3 (plane numerator: f 0:3 = -n,
+    3 = n.v0) or 4 (denominator: f 0:3 = n).  d, m, o: three [1, R] ray
+    rows each (direction, o x d, origin).  Returns w0, w1, w2, num, den
+    [n, R]."""
+    w = []
+    for k in range(3):
+        acc = col(k, 0) * d[0]
+        for f in (1, 2):
+            acc = acc + col(k, f) * d[f]
+        for f in range(3):
+            acc = acc + col(k, 3 + f) * m[f]
+        w.append(acc)
+    num = col(3, 3) + col(3, 0) * o[0]
+    for f in (1, 2):
+        num = num + col(3, f) * o[f]
+    den = col(4, 0) * d[0]
+    for f in (1, 2):
+        den = den + col(4, f) * d[f]
+    return w[0], w[1], w[2], num, den
+
+
+def _fused_col(edge, plane):
+    """tri_forms column reader over FusedTris tables: edge(k, f) reads
+    column f of edge form k, plane(k, f) column f of plane row k."""
+    def col(form, f):
+        if form < 3:
+            return edge(form, f)
+        if form == 3:
+            return plane(0, 6 if f == 3 else 3 + f)
+        return plane(1, f)
+
+    return col
+
+
+def _ray_rows(o, d):
+    """[R,3] rays -> the [1, R] row lists (d, o x d, o) of tri_forms."""
     m = jnp.cross(o, d)
-    one = jnp.ones(o.shape[:-1] + (1,), o.dtype)
-    zero2 = jnp.zeros(o.shape[:-1] + (2,), o.dtype)
-    zero1 = jnp.zeros(o.shape[:-1] + (1,), o.dtype)
-    # Degenerate-component fallback keeps the SIGN of d (a tiny negative
-    # component must yield a large NEGATIVE inverse, or the slab test
-    # collapses to tn=tf=0 and the cull stops being conservative).
-    inv = jnp.where(jnp.abs(d) > 1e-12, 1.0 / jnp.where(d == 0, 1.0, d),
-                    jnp.where(d < 0, -1e12, 1e12))
-    ray_e = jnp.concatenate([d, m, zero2], axis=-1)
-    ray_p = jnp.concatenate([d, o, one, zero1], axis=-1)
-    ray_b = jnp.concatenate([inv, o, zero2], axis=-1)
-    return ray_e, ray_p, ray_b
+    return tuple([x[:, a][None, :] for a in range(3)] for x in (d, m, o))
 
 
-def _dot(a, b):
-    return jax.lax.dot_general(
-        a, b,
-        dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=_PRECISION,
-    )
-
-
-def _epilogue(w, nd, best_t, best_id, base, Tt, iota):
-    """Shared VPU tail: sign tests, plane t, running (min, argmin).
-
-    w: [3*Tt, Rt] edge products; nd: [2*Tt, Rt]; best_t/best_id: [1, Rt];
-    iota: hoisted [Tt, Rt] row indices (base added post-reduction)."""
+def hit_t(w0, w1, w2, num, den):
+    """Sign test + plane t on [n, R] forms: t of each inside hit beyond
+    the self-intersection epsilon, else 1e30.  Shared by every
+    bilinear-form intersector (reference and kernels, both levels)."""
     inf = jnp.float32(1e30)  # Python-literal INF: Pallas kernels cannot
     # capture module-level device constants (cm.INF) as closures.
-    w0 = w[0:Tt]
-    w1 = w[Tt : 2 * Tt]
-    w2 = w[2 * Tt : 3 * Tt]
-    num = nd[0:Tt]
-    den = nd[Tt : 2 * Tt]
     wmin = jnp.minimum(jnp.minimum(w0, w1), w2)
     wmax = jnp.maximum(jnp.maximum(w0, w1), w2)
     inside = (wmin >= 0) | (wmax <= 0)
     safe = jnp.abs(den) > 1e-12
     t = jnp.where(safe, num / jnp.where(safe, den, 1.0), inf)
-    tc = jnp.where(inside & (t > 1e-4), t, inf)
+    return jnp.where(inside & (t > 1e-4), t, inf)
+
+
+def fold_best(tc, ids, best_t, best_id):
+    """Fold [n, R] candidate t (ids: their triangle ids, [n, R]) into the
+    running [1, R] best.  Ties keep the smallest id, so folding tiles in
+    ascending id order with a strict < matches one argmin over all."""
     tmin = jnp.min(tc, axis=0, keepdims=True)
-    amin = jnp.min(
-        jnp.where(tc <= tmin, iota, jnp.int32(2**30)), axis=0, keepdims=True
-    )
+    amin = jnp.min(jnp.where(tc <= tmin, ids, jnp.int32(2**30)), axis=0,
+                   keepdims=True)
     better = tmin < best_t
-    return (
-        jnp.where(better, tmin, best_t),
-        jnp.where(better, amin + base, best_id),
-    )
+    return (jnp.where(better, tmin, best_t),
+            jnp.where(better, amin, best_id))
 
 
-def _tile_cull(bounds_ref, j, inv, og, best_t):
-    """Slab-test all rays in the tile against tile j's AABB; True when
-    any ray enters the box in front of the origin and closer than its
-    current best hit."""
-    tn = jnp.full_like(best_t, -jnp.float32(1e30))
-    tf = best_t  # entering beyond the current best cannot improve it
-    for a in range(3):
-        lo = bounds_ref[j, a]
-        hi = bounds_ref[j, 3 + a]
-        t0 = (lo - og[a : a + 1]) * inv[a : a + 1]
-        t1 = (hi - og[a : a + 1]) * inv[a : a + 1]
-        tn = jnp.maximum(tn, jnp.minimum(t0, t1))
-        tf = jnp.minimum(tf, jnp.maximum(t0, t1))
-    return jnp.any((tn <= tf * 1.0001) & (tf > 0))
+def _intersect_ref(ft: "FusedTris", o, d, t_max):
+    """Plain jnp version of the kernel, unculled (the CPU path and the
+    kernel's reference; the cull is conservative so results are
+    identical).  Scans _REF_TILES table tiles per step.
 
-
-def _kernel(raye_ref, rayp_ref, rayb_ref, tmax_ref, edge_ref, plane_ref,
-            bounds_ref, t_out, id_out, best_t_s, best_id_s, *, n_tiles):
-    from jax.experimental import pallas as pl
-
-    raye = raye_ref[0]  # [8, Rt]
-    rayp = rayp_ref[0]  # [8, Rt]
-    inv = rayb_ref[0][0:3]  # [3, Rt]
-    og = rayb_ref[0][3:6]
-    iota = jax.lax.broadcasted_iota(jnp.int32, (TRI_TILE, RAY_TILE), 0)
-    best_t_s[:] = tmax_ref[0]
-    best_id_s[:] = jnp.full((1, RAY_TILE), -1, jnp.int32)
-
-    # Cull only when there are enough tiles for skips to outweigh the
-    # @pl.when pipeline break (measured: at <=8 tiles every ray crosses
-    # most tile boxes and the cond costs ~20% for nothing).
-    use_cull = n_tiles >= 16
-
-    def tile_work(j):
-        w = _dot(edge_ref[j].reshape(3 * TRI_TILE, _K), raye)
-        nd = _dot(plane_ref[j].reshape(2 * TRI_TILE, _K), rayp)
-        bt, bid = _epilogue(w, nd, best_t_s[:], best_id_s[:],
-                            j * TRI_TILE, TRI_TILE, iota)
-        best_t_s[:] = bt
-        best_id_s[:] = bid
-
-    def body(j, _):
-        if use_cull:
-            @pl.when(_tile_cull(bounds_ref, j, inv, og, best_t_s[:]))
-            def _():
-                tile_work(j)
-        else:
-            tile_work(j)
-        return 0
-
-    # Whole-ray-tile liveness skip: lanes of terminated paths carry
-    # t_max = 0 (integrator passes where(active, INF, 0)), so a ray tile
-    # whose 512 lanes are all dead skips every triangle tile outright.
-    @pl.when(jnp.any(tmax_ref[0] > 0))
-    def _():
-        jax.lax.fori_loop(0, n_tiles, body, 0)
-
-    t_out[0] = best_t_s[:]
-    id_out[0] = best_id_s[:]
-
-
-@functools.partial(jax.jit, static_argnames=("n_tiles", "interpret"))
-def _intersect_pallas(edge_table, plane_table, tile_bounds, raye, rayp,
-                      rayb, t_max, n_tiles: int, interpret: bool = False):
-    """ray*: [G, 8, Rt], t_max: [G, Rt] -> (t, id) each [G, 1, Rt].
-    Returned ids index the Morton-ordered tables (remap via perm)."""
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    G = raye.shape[0]
-    kern = functools.partial(_kernel, n_tiles=n_tiles)
-    ray_spec = pl.BlockSpec((1, _K, RAY_TILE), lambda i: (i, 0, 0),
-                            memory_space=pltpu.VMEM)
-    flat_spec = pl.BlockSpec((1, 1, RAY_TILE), lambda i: (i, 0, 0),
-                             memory_space=pltpu.VMEM)
-    return pl.pallas_call(
-        kern,
-        grid=(G,),
-        in_specs=[
-            ray_spec, ray_spec, ray_spec, flat_spec,
-            pl.BlockSpec(edge_table.shape, lambda i: (0, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(plane_table.shape, lambda i: (0, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec(tile_bounds.shape, lambda i: (0, 0),
-                         memory_space=pltpu.SMEM),
-        ],
-        out_specs=[flat_spec, flat_spec],
-        out_shape=[
-            jax.ShapeDtypeStruct((G, 1, RAY_TILE), jnp.float32),
-            jax.ShapeDtypeStruct((G, 1, RAY_TILE), jnp.int32),
-        ],
-        scratch_shapes=[
-            pltpu.VMEM((1, RAY_TILE), jnp.float32),
-            pltpu.VMEM((1, RAY_TILE), jnp.int32),
-        ],
-        compiler_params=pltpu.CompilerParams(
-            # Default scoped-vmem cap (16M) rejects the kernel beyond
-            # ~20 tri tiles; physical VMEM is far larger on v5e.
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        interpret=interpret,
-    )(raye, rayp, rayb, t_max[:, None, :], edge_table, plane_table,
-      tile_bounds)
-
-
-def _intersect_ref(ft: "FusedTris", raye, rayp, t_max):
-    """Pure-jnp reference of the kernel math, unculled (CPU backend +
-    tests; the cull is conservative so results are identical).
-
-    raye/rayp: [R, 8]; returns (t [R], id [R]) in Morton order."""
+    o/d: [R, 3]; returns (t [R], id [R]) in Morton order."""
     ntt = ft.edge_table.shape[0]
-    raye_t = raye.T
-    rayp_t = rayp.T
-    R = raye.shape[0]
-    iota = jax.lax.broadcasted_iota(jnp.int32, (TRI_TILE, R), 0)
+    ng = -(-ntt // _REF_TILES)
+    pad = ((0, ng * _REF_TILES - ntt),) + ((0, 0),) * 3
+    S = _REF_TILES * TRI_TILE
+
+    def steps(table):  # [ntt, k, TT, 8] -> [ng, k, S, 8]
+        k = table.shape[1]
+        t = jnp.pad(table, pad).reshape(ng, _REF_TILES, k, TRI_TILE, _K)
+        return t.transpose(0, 2, 1, 3, 4).reshape(ng, k, S, _K)
+
+    rows = _ray_rows(o, d)
+    iota = jax.lax.broadcasted_iota(jnp.int32, (S, o.shape[0]), 0)
 
     def body(carry, blk):
         eblk, pblk, base = blk
-        w = _dot(eblk.reshape(3 * TRI_TILE, _K), raye_t)
-        nd = _dot(pblk.reshape(2 * TRI_TILE, _K), rayp_t)
-        best_t, best_id = _epilogue(w, nd, carry[0], carry[1], base,
-                                    TRI_TILE, iota)
-        return (best_t, best_id), None
+        col = _fused_col(lambda k, f: eblk[k, :, f][:, None],
+                         lambda k, f: pblk[k, :, f][:, None])
+        tc = hit_t(*tri_forms(col, *rows))
+        return fold_best(tc, iota + base, *carry), None
 
-    init = (t_max[None, :], jnp.full((1, R), -1, jnp.int32))
-    bases = (jnp.arange(ntt) * TRI_TILE).astype(jnp.int32)
+    init = (t_max[None, :], jnp.full((1, o.shape[0]), -1, jnp.int32))
+    bases = (jnp.arange(ng) * S).astype(jnp.int32)
     (best_t, best_id), _ = jax.lax.scan(
-        body, init, (ft.edge_table, ft.plane_table, bases)
+        body, init, (steps(ft.edge_table), steps(ft.plane_table), bases)
     )
     return best_t[0], best_id[0]
 
 
+# ---------------------------------------------------------------------------
+# GPU kernel
+
+
+def _kernel(rays_ref, tmax_ref, edge_ref, plane_ref, bounds_ref, t_ref,
+            id_ref, *, n_tiles):
+    """One program: RAY_BLOCK rays against every triangle tile.
+    rays_ref block [16, RB]: rows d(0:3), o x d(3:6), o(6:9), 1/d(9:12)."""
+    RB = RAY_BLOCK
+    d, m, o, inv = ([rays_ref[f, :].reshape(1, RB) for f in range(a, a + 3)]
+                    for a in (0, 3, 6, 9))
+    tmax = tmax_ref[:].reshape(1, RB)
+    iota = jax.lax.broadcasted_iota(jnp.int32, (_CHUNK, RB), 0)
+
+    def cull(j, best_t):
+        """True when any ray enters tile j's box in front of its origin
+        and closer than its current best hit."""
+        tn = jnp.full((1, RB), -1e30, jnp.float32)
+        tf = best_t  # entering beyond the current best cannot improve it
+        for a in range(3):
+            t0 = (bounds_ref[j, a] - o[a]) * inv[a]
+            t1 = (bounds_ref[j, 3 + a] - o[a]) * inv[a]
+            tn = jnp.maximum(tn, jnp.minimum(t0, t1))
+            tf = jnp.minimum(tf, jnp.maximum(t0, t1))
+        live = (tn <= tf * 1.0001) & (tf > 0)
+        return jnp.max(live.astype(jnp.int32)) > 0
+
+    def chunk(j, c0, best):
+        def reader(ref):  # [_CHUNK, 1] column f of table row k
+            return lambda k, f: ref[j, k, pl.ds(c0, _CHUNK), f].reshape(
+                _CHUNK, 1)
+
+        col = _fused_col(reader(edge_ref), reader(plane_ref))
+        tc = hit_t(*tri_forms(col, d, m, o))
+        return fold_best(tc, iota + (j * TRI_TILE + c0), *best)
+
+    def tile(j, best):
+        def work(best):
+            for c0 in range(0, TRI_TILE, _CHUNK):
+                best = chunk(j, c0, best)
+            return best
+
+        return jax.lax.cond(cull(j, best[0]), work, lambda b: b, best)
+
+    best = (tmax, jnp.full((1, RB), -1, jnp.int32))
+    # Whole-block liveness skip: lanes of terminated paths carry
+    # t_max = 0 (the integrator passes where(active, INF, 0)).
+    best = jax.lax.cond(
+        jnp.max(tmax) > 0,
+        lambda b: jax.lax.fori_loop(0, n_tiles, tile, b),
+        lambda b: b, best)
+    t_ref[:] = best[0].reshape(RB)
+    id_ref[:] = best[1].reshape(RB)
+
+
+@functools.partial(jax.jit, static_argnames=("interpret",))
+def _intersect_pallas(edge_table, plane_table, tile_bounds, rays, t_max,
+                      interpret: bool = False):
+    """rays: [16, Rp] kernel ray rows, t_max: [Rp] (Rp a multiple of
+    RAY_BLOCK) -> (t, id) each [Rp].  Returned ids index the
+    Morton-ordered tables (remap via perm)."""
+    Rp = t_max.shape[0]
+    kern = functools.partial(_kernel, n_tiles=edge_table.shape[0])
+    table = pl.BlockSpec(memory_space=pl.ANY)
+    flat = pl.BlockSpec((RAY_BLOCK,), lambda i: (i,))
+    return pl.pallas_call(
+        kern,
+        grid=(Rp // RAY_BLOCK,),
+        in_specs=[pl.BlockSpec((16, RAY_BLOCK), lambda i: (0, i)), flat,
+                  table, table, table],
+        out_specs=[flat, flat],
+        out_shape=[
+            jax.ShapeDtypeStruct((Rp,), jnp.float32),
+            jax.ShapeDtypeStruct((Rp,), jnp.int32),
+        ],
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4),
+        interpret=interpret,
+        name="intersect_fused",
+    )(rays, t_max, edge_table, plane_table, tile_bounds)
+
+
+def kernel_rays(o, d, R_pad):
+    """[16, R_pad] kernel ray rows [d, o x d, o, 1/d, 0...]; pad lanes
+    carry d = (1,1,1) so 1/d stays finite."""
+    R = o.shape[0]
+    o = jnp.pad(o, ((0, R_pad - R), (0, 0)))
+    d = jnp.pad(d, ((0, R_pad - R), (0, 0)), constant_values=1.0)
+    rows = jnp.concatenate(
+        [d, jnp.cross(o, d), o, ray_inv(d), jnp.zeros((R_pad, 4))], -1)
+    return rows.T
+
+
 def intersect_fused(ft: FusedTris, o, d, t_max, any_hit: bool = False,
-                    compact: bool | None = None):
+                    compact: bool = False):
     """Closest hit against all triangles.  Returns (t, tri_id, hit); t
     keeps the incoming t_max value on miss (callers compare t < t_max).
 
@@ -361,20 +380,14 @@ def intersect_fused(ft: FusedTris, o, d, t_max, any_hit: bool = False,
 
     compact=True partitions live lanes (t_max > 0) to the front with a
     stable 2-bucket counting sort before tiling, so the kernel's
-    all-dead ray-tile skip actually fires: the integrator's RR kills
+    all-dead ray-block skip actually fires: the integrator's RR kills
     lanes scattered through pixel order, and without the partition a
-    512-lane tile is almost never ALL dead even when ~55% of lanes are
-    (the round-4 dead-lane diagnosis, ARCHITECTURE.md roadmap #3).
-    Results are identical (per-lane independent; exact unsort).
-    Default: on for TPU batches of several tiles AND scenes of >=16
-    triangle tiles.  Below that the skip has nothing to save (veach-mis
-    is ONE tile) while the [R] cumsum/scatter/gather glue repeats every
-    dispatch -- measured 8.27 -> 6.96 Mrays/s on the full veach bench
-    when unconditionally on (BENCH r5 first run)."""
+    ray block is almost never ALL dead.  Results are identical
+    (per-lane independent; exact unsort).  Off by default: in the 720p
+    staircase render the kernel ran 4 % faster without it (the
+    regeneration driver already refills dead lanes; PERF.md)."""
     R = o.shape[0]
-    if compact is None:
-        compact = (jax.default_backend() == "tpu" and R >= 4 * RAY_TILE
-                   and ft.edge_table.shape[0] >= 16)
+    kernel = use_kernel("fused")
     if compact:
         live = t_max > 0
         cs = jnp.cumsum(live.astype(jnp.int32))
@@ -385,28 +398,14 @@ def intersect_fused(ft: FusedTris, o, d, t_max, any_hit: bool = False,
         packed = jnp.concatenate([o, d, t_max[:, None]], axis=-1)[perm]
         o, d = packed[:, 0:3], packed[:, 3:6]
         t_max = packed[:, 6]
-    raye, rayp, rayb = ray_features(o, d)
-    if jax.default_backend() != "tpu":
-        t, idx = _intersect_ref(ft, raye, rayp, t_max)
-    else:
-        G = max(1, -(-R // RAY_TILE))
-        Rp = G * RAY_TILE
-
-        def pad(x, fill):
-            return jnp.pad(x, [(0, Rp - R)] + [(0, 0)] * (x.ndim - 1),
-                           constant_values=fill)
-
-        def tiles(x):
-            return pad(x, 0.0).reshape(G, RAY_TILE, _K).transpose(0, 2, 1)
-
+    if kernel:
+        Rp = -(-R // RAY_BLOCK) * RAY_BLOCK
         t, idx = _intersect_pallas(
             ft.edge_table, ft.plane_table, ft.tile_bounds,
-            tiles(raye), tiles(rayp), tiles(rayb),
-            pad(t_max, 0.0).reshape(G, RAY_TILE),
-            n_tiles=ft.edge_table.shape[0],
-        )
-        t = t.reshape(-1)[:R]
-        idx = idx.reshape(-1)[:R]
+            kernel_rays(o, d, Rp), jnp.pad(t_max, (0, Rp - R)))
+        t, idx = t[:R], idx[:R]
+    else:
+        t, idx = _intersect_ref(ft, o, d, t_max)
     # Map Morton-packed ids back to original triangle ids (identity
     # when the scene tables were pre-Morton-ordered: perm is None, and
     # padded-row ids cannot win -- their den=0 makes t=inf).
@@ -417,8 +416,7 @@ def intersect_fused(ft: FusedTris, o, d, t_max, any_hit: bool = False,
         idx = jnp.where(idx >= ft.n_tris, -1, idx)
     if compact:
         # Unsort exactly; t rides as bitcast int32 next to idx (int
-        # transport preserves bit patterns; f32 transport canonicalizes
-        # the -1 quiet-NaN pattern on TPU -- see twolevel.py).
+        # transport preserves bit patterns, including NaN payloads).
         out = jnp.stack(
             [jax.lax.bitcast_convert_type(t, jnp.int32), idx], axis=-1
         )[pos]

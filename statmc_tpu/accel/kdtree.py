@@ -9,7 +9,7 @@ Re-derivation of the reference's KdTreeAccel
   8 + 1.3 log2 N (kdtreeaccel.cpp:140-270; parameter defaults :434-439).
 * Traversal (device): pbrt walks with an explicit todo STACK
   (kdtreeaccel.cpp:289-356) -- a per-lane stack is hostile to lockstep
-  SPMD (divergent depths, scattered VMEM), so the TPU shape is
+  SPMD (divergent depths, scattered memory), so the wavefront shape is
   **kd-restart**: descend from the root clipping [t_lo, t_hi] to the
   near side at every interior node, test the reached leaf, then advance
   t_lo past the leaf and restart from the root.  No stack, bounded
@@ -20,7 +20,7 @@ Re-derivation of the reference's KdTreeAccel
 The kd-tree is selected by the scene's `Accelerator "kdtree"` directive
 (api.cpp dispatch); BVH remains the default.  It is a PARITY component,
 not the perf path: the restart scheme re-descends O(depth) nodes per
-leaf, and the gather walk cannot touch the MXU -- the fused/two-level
+leaf, and the gather walk is scalar-bound -- the fused/two-level
 intersectors stay the production accelerators.
 """
 from __future__ import annotations

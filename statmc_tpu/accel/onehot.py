@@ -1,19 +1,19 @@
-"""One-hot MXU BVH traversal: gathers as systolic-array matmuls.
+"""One-hot BVH traversal: gathers as matmuls.
 
 The classic BVH walk is a per-lane pointer chase whose node fetches
-become XLA gathers -- slow on TPU (measured ~170x slower per primitive
-than brute force).  This module reformulates the fetch: each traversal
-step materializes a one-hot row per ray over the node axis and fetches
+become XLA gathers -- scalar-bound on a wide accelerator, far slower
+per primitive than brute force.  This module reformulates the fetch:
+each traversal step materializes a one-hot row per ray over the node axis and fetches
 the node record with one f32 matmul
 
     row[r, :] = onehot[r, N] @ node_table[N, K]
 
 A 0/1 one-hot times f32 data at Precision.HIGHEST is EXACT (each output
 sums one x*1 against x*0 terms), so geometry fetched this way is
-bit-identical to a gather -- but it runs on the MXU at matmul speed
-instead of the scalar gather path.  (The default TPU matmul precision is
-bf16 and silently corrupts >8-bit integer links -- HIGHEST is load-
-bearing.)
+bit-identical to a gather -- but it runs as a matmul instead of the
+scalar gather path.  (A default-precision f32 matmul may run in TF32
+on the GPU and silently corrupt >8-bit integer links -- HIGHEST is
+load-bearing.)
 
 Two tables keep the hot loop lean:
   trav_table [N, 8]:  bbox lo(3) hi(3), miss link, leaf flag
@@ -189,7 +189,7 @@ def _traverse_chunk(trav_table, leaf_table, n_nodes: int, leaf_size: int,
 
 
 def intersect_onehot(bvh: OneHotBVH, o, d, t_max, any_hit: bool = False):
-    """Closest-hit (or any-hit) via packed-table traversal: one-hot MXU
+    """Closest-hit (or any-hit) via packed-table traversal: one-hot matmul
     fetch for small node tables, contiguous-row gather fetch beyond.
     Returns (t_best [R], tri_idx [R] (-1 miss), hit [R])."""
     R = o.shape[0]

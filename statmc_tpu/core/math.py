@@ -26,7 +26,7 @@ def gamma(n: int) -> float:
 
     Mirrors core/pbrt.h gamma(); used for watertight intersection offsets
     instead of the reference's full EFloat interval arithmetic
-    (core/efloat.h) - on TPU we use the closed-form bounds only.
+    (core/efloat.h) - on the device we use the closed-form bounds only.
     """
     ne = float(n) * float(MACHINE_EPS)
     return ne / (1.0 - ne)
@@ -174,7 +174,7 @@ def perspective(fov_deg: float, near: float, far: float) -> np.ndarray:
 
 
 def _apply33(rows, v):
-    # Explicit elementwise form: width-3 matmuls hit low-precision MXU paths;
+    # Explicit elementwise form: width-3 matmuls may run in TF32 on the GPU;
     # this keeps full f32 and fuses into neighbors.
     x, y, z = v[..., 0], v[..., 1], v[..., 2]
     return jnp.stack(

@@ -20,7 +20,7 @@ time from primitive polynomials over GF(2):
   verbatim is both impractical and pointless when the construction is
   public.
 
-The TPU shape: matrices live as a [D, 32] uint32 table; a draw is a
+The wavefront shape: matrices live as a [D, 32] uint32 table; a draw is a
 32-step XOR fold over the sample index bits -- branch-free, vectorizes
 over lanes, and the (bounce, slot)-addressed dimension gather keeps the
 counter-addressed stream property every other mode shares (results

@@ -1,19 +1,24 @@
-"""Pallas TPU kernel for the statistical denoising filter + custom VJP.
+"""Pallas kernel (Triton route) for the statistical denoising filter +
+custom VJP.
 
 Same semantics as filter_jax.stat_filter (the XLA reference
-implementation; see its docstring for the derivation) but engineered for
-the TPU memory hierarchy:
+implementation; see its docstring for the derivation), shaped for a GPU:
 
-* planar channel layout [C, H, W] so the image width rides the 128-lane
-  axis;
-* the image is processed in row slabs: each grid step DMAs a
-  (TH + 2*radius)-row halo slab of every field from HBM into VMEM once,
-  then sweeps all (2r+1)^2 window offsets out of VMEM -- the XLA
-  fallback re-streams the padded arrays from HBM every offset, which
-  makes it bandwidth-bound; this kernel is compute-bound on the VPU;
-* filter constants (spatial/range Gaussian factors) are baked into the
-  trace as python floats (they are config constants in the reference
-  too: estimator.h:259).
+* planar channel layout [C, H+2r, W+2r]: each program owns one
+  TH x TW output tile, keeps the center values of every plane and the
+  running sums in registers, and walks the (2r+1)^2 window in-kernel.
+  Every window offset reads the shifted neighbour tile of each plane
+  from device memory, but consecutive offsets touch the same cache
+  lines, so each plane is fetched from DRAM about once per tile; the
+  XLA sweep instead re-streams every padded plane once per offset and
+  writes its accumulators back each time (memory-bound by two orders
+  of magnitude at r=20);
+* invalid neighbours (zero padding, halo rows past the image edge) carry
+  d2 = -inf, which fails the two-sample test, so no validity plane is
+  read per offset (centers read their own d2 once);
+* everything computes in f32; filter constants (spatial/range Gaussian
+  factors) are baked into the trace as Python floats (they are config
+  constants in the reference too: estimator.h:259).
 
 The custom VJP exploits the symmetry of the unnormalized weights
 (w_ij = w_ji: spatial, range, and acceptance terms are all symmetric):
@@ -35,318 +40,123 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 Array = jax.Array
+
+# Output tile per program: TW = 32 f32 columns is one 128-byte row
+# segment per load; 16 x 32 pixels over 4 warps is 4 pixels a thread.
+TH, TW = 16, 32
+NUM_WARPS = 4
 
 
 def _round_up(x, m):
     return (x + m - 1) // m * m
 
 
-def _filter_kernel(
-    mc_hbm, d2_hbm, fm_hbm, gb_hbm, valid_hbm,
-    out_ref, wsum_ref,
-    *, C, CF, G, TH, WC, WS, radius, ds_factor, gb_factors, normalize,
-    accept_expand, range_bf16, accept_bf16,
-):
-    """One grid step: rows [i*TH, i*TH+TH).  HBM inputs are padded to
-    [*, Hp + 2r, WS]; compute runs on the [TH, WC] center; outputs are
-    [CF, TH, WC] blocks.  C = acceptance-test channels (mc/d2); CF =
-    filtered channels (fm may carry the film image as extra planes).
-
-    accept_expand: the two-sample test (mc_c-mc_n)^2 <= d2_c+d2_n+eps
-    is evaluated in expanded form  (mc_n^2-d2_n) - 2 mc_c mc_n
-    <= d2_c+eps-mc_c^2  -- one slab precompute (A = mc^2-d2) turns the
-    5-op direct form into FMA+cmp per channel.  Algebraically
-    identical; decisions can flip only within ~1 ulp of the test
-    boundary (same class of transform as the round-4 quadratic
-    range-term expansion).
-    range_bf16: the G-buffer range planes (q/p) and the exp argument
-    ride bf16 -- the range kernel is a similarity heuristic and its
-    ~2^-8 relative weight error is orders below the MC noise being
-    filtered; acceptance, moments, and the filtered payload stay f32.
-    accept_bf16: the two-sample test also runs in bf16 (direct form:
-    one bf16 diff + FMA + cmp per channel).  The test is a binary gate
-    on noisy MC moments; a ~0.4%% relative threshold shift flips only
-    boundary pairs whose weight contribution is equivocal anyway.
-    Quality gated on a real scene before any default flip (like
-    range_bf16 was).
-    """
+def _filter_kernel(mc_ref, d2_ref, d2c_ref, fm_ref, gb_ref, out_ref,
+                   wsum_ref, *, C, CF, G, th, tw, radius, ds_factor,
+                   gb_factors, normalize):
+    """One program: output rows [i*th, i*th+th), columns [j*tw, j*tw+tw).
+    Inputs are padded planar [*, Hp+2r, Wp+2r]; outputs [CF, Hp, Wp] and
+    [Hp, Wp].  C = acceptance-test channels (mc/d2); CF = filtered
+    channels (fm may carry the film image as extra planes).  d2 marks
+    invalid neighbours with -inf; d2c holds the centers' own values."""
     r = radius
-    i = pl.program_id(0)
-    # Slab height rounds up to the 8-row sublane tile: Mosaic rejects
-    # dynamic-offset DMA slices of non-8-multiple height (hit at r=2,
-    # where TH+2r=52; the production r=20 slab is 88 and masked this).
-    # The extra rows are bottom padding the window walk never reads.
-    SH = _round_up(TH + 2 * r, 8)
-    rdt = jnp.bfloat16 if range_bf16 else jnp.float32
+    y0 = pl.program_id(0) * th
+    x0 = pl.program_id(1) * tw
 
-    def body(mc_s, d2_s, fm_s, v_s, acc_s, wacc_s, q_s, p_s, an_s, sem):
-        # p_s doubles as the G-buffer DMA landing slab: centers and the
-        # Q/A precomputes read it raw, then it is scaled to
-        # -2*gf_g*g_g in place for the cross-term MACs.
-        # DMA the halo slabs for this row block.
-        row0 = i * TH
-        cps = [
-            pltpu.make_async_copy(
-                mc_hbm.at[:, pl.ds(row0, SH), :], mc_s, sem.at[0]),
-            pltpu.make_async_copy(
-                d2_hbm.at[:, pl.ds(row0, SH), :], d2_s, sem.at[1]),
-            pltpu.make_async_copy(
-                fm_hbm.at[:, pl.ds(row0, SH), :], fm_s, sem.at[2]),
-            pltpu.make_async_copy(
-                valid_hbm.at[pl.ds(row0, SH), :], v_s, sem.at[3]),
-        ]
-        if G:
-            cps.append(pltpu.make_async_copy(
-                gb_hbm.at[:, pl.ds(row0, SH), :], p_s, sem.at[4]))
-        for cp in cps:
-            cp.start()
-        for cp in cps:
-            cp.wait()
+    def tile(ref, c, dy, dx):
+        return ref[c, pl.ds(y0 + dy, th), pl.ds(x0 + dx, tw)]
 
-        # Center fields (static slices).
-        mc_c = [mc_s[c, r : r + TH, r : r + WC] for c in range(C)]
-        d2_c = [d2_s[c, r : r + TH, r : r + WC] for c in range(C)]
-        gb_c = [p_s[g, r : r + TH, r : r + WC] for g in range(G)]
-        if accept_bf16:
-            adt = jnp.bfloat16
-            mc_c16 = [x.astype(adt) for x in mc_c]
-            thr_c16 = [(d2_c[c] + 1e-20).astype(adt) for c in range(C)]
+    mc_c = [tile(mc_ref, c, r, r) for c in range(C)]
+    thr_c = [tile(d2c_ref, c, r, r) + 1e-20 for c in range(C)]
+    gb_c = [tile(gb_ref, g, r, r) for g in range(G)]
 
-        acc_s[...] = jnp.zeros_like(acc_s)
-        wacc_s[...] = jnp.zeros_like(wacc_s)
+    def dx_body(dx, carry, dy, sdy):
+        wsum, *acc = carry
+        accept = None
+        for c in range(C):
+            diff = mc_c[c] - tile(mc_ref, c, dy, dx)
+            a = diff * diff <= thr_c[c] + tile(d2_ref, c, dy, dx)
+            accept = a if accept is None else accept & a
+        fdx = (dx - r).astype(jnp.float32)
+        arg = sdy + ds_factor * (fdx * fdx)
+        for g in range(G):
+            dg = gb_c[g] - tile(gb_ref, g, dy, dx)
+            arg = arg + gb_factors[g] * (dg * dg)
+        w = jnp.where(accept, jnp.exp(arg), 0.0)
+        return (wsum + w,) + tuple(
+            acc[c] + w * tile(fm_ref, c, dy, dx) for c in range(CF))
 
-        if accept_expand and not accept_bf16:
-            # Slab precompute A = mc^2 - d2; center duals b, -2mc.
-            for c in range(C):
-                an_s[c] = mc_s[c] * mc_s[c] - d2_s[c]
-            b_c = [d2_c[c] + 1e-20 - mc_c[c] * mc_c[c] for c in range(C)]
-            m2_c = [-2.0 * mc_c[c] for c in range(C)]
+    def dy_body(dy, carry):
+        fdy = (dy - r).astype(jnp.float32)
+        body = partial(dx_body, dy=dy, sdy=ds_factor * (fdy * fdy))
+        return jax.lax.fori_loop(0, 2 * r + 1, body, carry)
 
-        side = 2 * r + 1
-
-        # Quadratic expansion of the G-buffer range term:
-        #   sum_g gf_g (g_c - g_n)^2
-        #     = A(center) + Q(neighbor) - 2 sum_g (gf_g g_c) g_n,
-        # so the per-offset inner loop is G MACs against precomputed
-        # planes instead of 3G ops, and invalid pixels ride Q = -inf
-        # (their weight exponentiates to 0, replacing the v_n multiply).
-        # The slab-level precompute amortizes over (2r+1)^2 offsets.
-        if G and range_bf16:
-            # DIRECT-form bf16 range term: planes pre-scale to
-            # s_g = sqrt(-gf_g) g so the inner loop is one bf16
-            # difference + one bf16 FMA per plane (arg -= d*d) -- no
-            # q/a_c planes at all.  Numerically SOUND in bf16, unlike
-            # casting the quadratic-expansion operands: the expansion
-            # sums +-|gf| g^2 magnitude terms that cancel to a small
-            # exp argument (production sd=0.02 -> gf ~ -1250 -> +-O(5)
-            # absolute error on the argument, which shifted a real
-            # scene's denoised film mean ~5%); the direct form
-            # accumulates same-sign terms, so the error stays relative.
-            # Invalid halo pixels ride s_0 = BIG: d*d overflows bf16 to
-            # inf and the lane's weight exponentiates to zero,
-            # replacing the q = -inf channel of the expanded form.
-            for gg in range(G):
-                sc = float(np.sqrt(-gb_factors[gg]))
-                p_s[gg] = jnp.where(v_s[...] > 0, p_s[gg] * sc, 1e19)
-            gb_c16 = [(gb_c[g] * float(np.sqrt(-gb_factors[g])))
-                      .astype(rdt) for g in range(G)]
-            q_s[...] = jnp.zeros((SH, WS))
-        elif G:
-            q = jnp.zeros((SH, WS))
-            for gg in range(G):
-                q = q + gb_factors[gg] * p_s[gg] * p_s[gg]
-            q = jnp.where(v_s[...] > 0, q, -jnp.inf)
-            q_s[...] = q
-            a_c = jnp.zeros((TH, WC))
-            for gg in range(G):
-                a_c = a_c + gb_factors[gg] * gb_c[gg] * gb_c[gg]
-            for gg in range(G):
-                p_s[gg] = p_s[gg] * (-2.0 * gb_factors[gg])
-        else:
-            q_s[...] = jnp.where(v_s[...] > 0, 0.0, -jnp.inf)
-
-        # Mosaic cannot address dynamic sublane offsets (dim -2 slices
-        # must be provably 8-aligned) and dynamic lane slicing is equally
-        # restricted, so the window walk is structured as: fori over the
-        # horizontal offset dx with pltpu.roll (dynamic lane rotate is a
-        # native TPU op), then a STATIC unrolled loop over the vertical
-        # offset dy (static sublane slices).  The roll's wrap-around
-        # region never reaches the [0:WC) read window because
-        # WS >= WC + 2r >= dx + WC.
-        def dx_body(dx, _):
-            def rolled(ref_plane):
-                return pltpu.roll(ref_plane, -dx, 1)
-
-            # bf16 acceptance: roll f32 (Mosaic bf16-roll crash), cast
-            # once per dx, amortized over the dy column.
-            mc_r = [rolled(mc_s[c]) for c in range(C)]
-            if accept_bf16:
-                mc_r = [x.astype(jnp.bfloat16) for x in mc_r]
-                d2_r = [rolled(d2_s[c]).astype(jnp.bfloat16)
-                        for c in range(C)]
-            elif accept_expand:
-                an_r = [rolled(an_s[c]) for c in range(C)]
-            else:
-                d2_r = [rolled(d2_s[c]) for c in range(C)]
-            fm_r = [rolled(fm_s[c]) for c in range(CF)]
-            # bf16 mode: roll in f32 (pltpu.roll on bf16 crashes
-            # Mosaic, probed on v5e), cast ONCE per dx -- the cast
-            # amortizes over the 2r+1 dy offsets while every inner
-            # read and MAC runs at half VREG width.
-            direct16 = bool(G) and range_bf16
-            q_r = None if direct16 else rolled(q_s[...])
-            p_r = [rolled(p_s[g]).astype(rdt) for g in range(G)]
-            fdx = (dx - r).astype(jnp.float32)
-
-            for dy in range(side):
-                fdy = jnp.float32(dy - r)
-                sconst = ds_factor * (fdy * fdy + fdx * fdx)
-                accept = None
-                for c in range(C):
-                    mc_n = mc_r[c][dy : dy + TH, 0:WC]
-                    if accept_bf16:
-                        d2_n = d2_r[c][dy : dy + TH, 0:WC]
-                        diff = mc_c16[c] - mc_n
-                        a = diff * diff <= thr_c16[c] + d2_n
-                    elif accept_expand:
-                        a = (an_r[c][dy : dy + TH, 0:WC]
-                             + m2_c[c] * mc_n) <= b_c[c]
-                    else:
-                        d2_n = d2_r[c][dy : dy + TH, 0:WC]
-                        diff = mc_c[c] - mc_n
-                        a = diff * diff <= d2_c[c] + d2_n + 1e-20
-                    accept = a if accept is None else (accept & a)
-                if direct16:
-                    d0 = gb_c16[0] - p_r[0][dy : dy + TH, 0:WC]
-                    arg = sconst.astype(rdt) - d0 * d0
-                    for g in range(1, G):
-                        d = gb_c16[g] - p_r[g][dy : dy + TH, 0:WC]
-                        arg = arg - d * d
-                elif G:
-                    arg = q_r[dy : dy + TH, 0:WC] + sconst + a_c
-                    for g in range(G):
-                        arg = arg + gb_c[g] * p_r[g][dy : dy + TH, 0:WC]
-                else:
-                    arg = q_r[dy : dy + TH, 0:WC] + sconst
-                w = (jnp.exp(arg).astype(jnp.float32)
-                     * accept.astype(jnp.float32))
-                wacc_s[...] += w
-                for c in range(CF):
-                    acc_s[c] += w * fm_r[c][dy : dy + TH, 0:WC]
-            return 0
-
-        jax.lax.fori_loop(0, side, dx_body, 0)
-
-        if normalize:
-            wsafe = jnp.maximum(wacc_s[...], 1e-20)
-            for c in range(CF):
-                out_ref[c] = acc_s[c] / wsafe
-        else:
-            for c in range(CF):
-                out_ref[c] = acc_s[c]
-        wsum_ref[0] = wacc_s[...]
-
-    pl.run_scoped(
-        body,
-        pltpu.VMEM((C, SH, WS), jnp.float32),
-        pltpu.VMEM((C, SH, WS), jnp.float32),
-        pltpu.VMEM((CF, SH, WS), jnp.float32),
-        pltpu.VMEM((SH, WS), jnp.float32),
-        pltpu.VMEM((CF, TH, WC), jnp.float32),
-        pltpu.VMEM((TH, WC), jnp.float32),
-        pltpu.VMEM((SH, WS), jnp.float32),
-        pltpu.VMEM((max(G, 1), SH, WS), jnp.float32),
-        pltpu.VMEM((C if accept_expand else 1, SH, WS), jnp.float32),
-        pltpu.SemaphoreType.DMA((5,)),
-    )
+    zero = jnp.zeros((th, tw), jnp.float32)
+    wsum, *acc = jax.lax.fori_loop(0, 2 * r + 1, dy_body,
+                                   (zero,) * (CF + 1))
+    scale = 1.0 / jnp.maximum(wsum, 1e-20) if normalize else None
+    for c in range(CF):
+        out_ref[c, pl.ds(y0, th), pl.ds(x0, tw)] = (
+            acc[c] * scale if normalize else acc[c])
+    wsum_ref[pl.ds(y0, th), pl.ds(x0, tw)] = wsum
 
 
-def _pad_planar(img_hwc, r, Hp, WS, extra=0):
-    """[H,W,C] -> [C, Hp+2r+extra, WS] zero-padded planar (halo
-    rows/cols; `extra` bottom rows let the kernel's 8-aligned slab
-    height over-read past the last halo row)."""
+def _planar(img_hwc, r, Hp, Wp, fill=0.0):
+    """[H,W,C] -> [C, Hp+2r, Wp+2r] planar, padded with `fill`."""
     H, W = img_hwc.shape[:2]
-    pl_img = jnp.moveaxis(img_hwc, -1, 0)
-    return jnp.pad(pl_img,
-                   ((0, 0), (r, (Hp - H) + r + extra), (r, (WS - W) - r)))
+    return jnp.pad(jnp.moveaxis(img_hwc, -1, 0),
+                   ((0, 0), (r, Hp - H + r), (r, Wp - W + r)),
+                   constant_values=fill)
 
 
 @partial(jax.jit, static_argnames=(
-    "radius", "ds_factor", "gb_factors", "normalize", "th", "interpret",
-    "accept_expand", "range_bf16", "accept_bf16"))
+    "radius", "ds_factor", "gb_factors", "normalize", "interpret"))
 def _run_filter(mc, d2, fm, gbufs, valid, radius, ds_factor, gb_factors,
-                normalize=True, th=48, interpret=False,
-                accept_expand=False, range_bf16=False,
-                accept_bf16=False):
+                normalize=True, interpret=False):
     """mc/d2: [H,W,C]; fm: [H,W,CF] (CF >= C: trailing planes filter
     along, e.g. the film image); gbufs: [H,W,G] flattened G-buffer
-    planes; valid: [H,W].  Returns (out [H,W,CF], wsum [H,W])."""
+    planes; valid: [H,W] neighbour validity.  H and W need not be
+    multiples of the tile.  Returns (out [H,W,CF], wsum [H,W])."""
     H, W, C = mc.shape
     CF = fm.shape[-1]
     G = gbufs.shape[-1]
     r = radius
-    TH = th
-    Hp = _round_up(H, TH)
-    WC = _round_up(W, 128)  # compute width (center)
-    WS = _round_up(WC + 2 * r, 128)  # slab width incl. halo
+    Hp, Wp = _round_up(H, TH), _round_up(W, TW)
 
-    # Kernel slab height is 8-aligned; the sources carry matching
-    # bottom padding so the last slab's DMA stays in bounds.
-    extra = _round_up(TH + 2 * r, 8) - (TH + 2 * r)
-    mc_p = _pad_planar(mc, r, Hp, WS, extra)
-    d2_p = _pad_planar(d2, r, Hp, WS, extra)
-    fm_p = _pad_planar(fm, r, Hp, WS, extra)
-    v_p = jnp.pad(valid, ((r, (Hp - H) + r + extra), (r, (WS - W) - r)))
-    gb_p = (_pad_planar(gbufs, r, Hp, WS, extra) if G
-            else jnp.zeros((1, Hp + 2 * r + extra, WS)))
+    mc_p = _planar(mc, r, Hp, Wp)
+    d2c_p = _planar(d2, r, Hp, Wp)
+    d2_p = _planar(jnp.where(valid[..., None] > 0, d2, -jnp.inf), r, Hp,
+                   Wp, fill=-jnp.inf)
+    fm_p = _planar(fm, r, Hp, Wp)
+    # G = 0: the kernel never reads the G-buffer operand.
+    gb_p = _planar(gbufs, r, Hp, Wp) if G else jnp.zeros((1, 1, 1))
 
-    grid = (Hp // TH,)
     kernel = functools.partial(
-        _filter_kernel,
-        C=C, CF=CF, G=G, TH=TH, WC=WC, WS=WS, radius=r,
+        _filter_kernel, C=C, CF=CF, G=G, th=TH, tw=TW, radius=r,
         ds_factor=float(ds_factor),
         gb_factors=tuple(float(g) for g in gb_factors),
         normalize=normalize,
-        accept_expand=accept_expand, range_bf16=range_bf16,
-        accept_bf16=accept_bf16,
     )
     out, wsum = pl.pallas_call(
         kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-            pl.BlockSpec(memory_space=pl.ANY),
-        ],
-        out_specs=[
-            pl.BlockSpec((CF, TH, WC), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, TH, WC), lambda i: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
+        grid=(Hp // TH, Wp // TW),
+        in_specs=[pl.BlockSpec(memory_space=pl.ANY)] * 5,
+        out_specs=[pl.BlockSpec(memory_space=pl.ANY)] * 2,
         out_shape=[
-            jax.ShapeDtypeStruct((CF, Hp, WC), jnp.float32),
-            jax.ShapeDtypeStruct((1, Hp, WC), jnp.float32),
+            jax.ShapeDtypeStruct((CF, Hp, Wp), jnp.float32),
+            jax.ShapeDtypeStruct((Hp, Wp), jnp.float32),
         ],
-        compiler_params=pltpu.CompilerParams(
-            # Big row slabs amortize the per-offset instruction overhead
-            # (TH=64 measured 2.4x faster than 16 at r=20); TH=48 is the
-            # largest slab that fits with the quadratic-expansion
-            # scratch planes under the v5e VMEM budget.
-            vmem_limit_bytes=120 * 1024 * 1024,
-        ),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
         interpret=interpret,
-    )(mc_p, d2_p, fm_p, gb_p, v_p)
-    out = jnp.moveaxis(out[:, :H, :W], 0, -1)
-    return out, wsum[0, :H, :W]
+        name="stat_filter",
+    )(mc_p, d2_p, d2c_p, fm_p, gb_p)
+    return jnp.moveaxis(out[:, :H, :W], 0, -1), wsum[:H, :W]
 
 
 # ---------------------------------------------------------------------------

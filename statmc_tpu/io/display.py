@@ -6,7 +6,7 @@ length-prefixed little-endian packets with directives CreateImage(4) /
 UpdateImage(3) / OpenImage(0) / ReloadImage(1) / CloseImage(2), image
 updates sent as per-channel tiles (128x128 here as there,
 display.cpp:239).  This is the framework's live observability UI for
-remote TPU jobs: any regex-selected buffer streams to a tev instance.
+remote accelerator jobs: any regex-selected buffer streams to a tev instance.
 
 Failures degrade gracefully (reconnect on next send), matching
 display.cpp:371-388.

@@ -1,6 +1,6 @@
 """Native (C++) runtime components, loaded via ctypes.
 
-The reference's runtime is C++ throughout; here the TPU compute path is
+The reference's runtime is C++ throughout; here the device compute path is
 JAX/XLA/Pallas, and the host-side runtime pieces that remain hot --
 currently the BVH builder -- are C++ compiled on demand with g++ into a
 cached shared library (no pybind11; plain C ABI + ctypes).  Everything

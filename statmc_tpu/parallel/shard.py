@@ -2,7 +2,7 @@
 
 The reference's entire parallel backend is a single-host pthread pool
 over 16x16 image tiles plus one CUDA stream (SURVEY.md §2.7/§5.8).  The
-TPU-native equivalent built here:
+mesh-native equivalent built here:
 
 * mesh axes ("spp", "px"): film rows / pixel blocks sharded over "px",
   sample indices strided over "spp";
@@ -35,10 +35,7 @@ from ..stats import estimator as E
 from ..driver import (RenderSetup, make_sample_fn, split_device_args,
                       zero_stats)
 
-try:  # jax >= 0.4.35
-    from jax.experimental.shard_map import shard_map
-except ImportError:  # pragma: no cover
-    from jax.shard_map import shard_map
+from jax import shard_map
 
 
 def make_mesh(n_spp: int, n_px: int, devices=None) -> Mesh:
@@ -145,7 +142,7 @@ def make_sharded_chunk_fn(setup: RenderSetup, mesh: Mesh):
         mesh=mesh,
         in_specs=(scene_spec,) + in_specs + (P(),),
         out_specs=out_specs,
-        check_rep=False,
+        check_vma=False,
     )
 
     jitted = jax.jit(sharded, static_argnames=())
@@ -175,7 +172,7 @@ def make_sharded_filter(mesh: Mesh, height: int, width: int, channels: int,
     window filter needs `radius` rows of halo from each neighbor.  Each
     device ships its boundary slabs up/down the axis with
     jax.lax.ppermute (zeros beyond the global edges), runs the filter on
-    the extended slab, and keeps the center rows.  This is the ICI-native
+    the extended slab, and keeps the center rows.  This is the mesh-native
     replacement for the reference's single-GPU whole-frame kernel launch
     (estimator.cpp:427-489).
 
@@ -245,7 +242,7 @@ def make_sharded_filter(mesh: Mesh, height: int, width: int, channels: int,
     )
     return jax.jit(shard_map(
         local_filter, mesh=mesh, in_specs=spec_in, out_specs=spec_out,
-        check_rep=False,
+        check_vma=False,
     ))
 
 

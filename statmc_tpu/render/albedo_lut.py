@@ -7,7 +7,7 @@ up-to-8-D multilinear interpolator (src/statistics/lut.h:163-272), with
 constant-texture dimensions baked out at material construction
 (src/core/material.cpp:134-255).
 
-TPU shape: tables are flat device arrays; interpolation over N static
+Wavefront shape: tables are flat device arrays; interpolation over N static
 dims unrolls into 2^N gathers + lerps, vectorized over all lanes.  The
 precompute is itself a JAX Monte Carlo integration over the existing
 BSDF sampling code (no separate C++ tool needed; exposed as
@@ -274,7 +274,7 @@ def precompute_family_nd(family: str, sizes=None, n_samples: int = 1024,
             # The conductor Fresnel pivots violently around
             # (eta ~ 1, k ~ 0) and at grazing cos_theta; denser cos/eta
             # axes (+ the k/cos warps above) bring off-grid error under
-            # the 0.05 threshold (measured on v5e-adjacent CPU runs).
+            # the 0.05 threshold (measured on CPU runs).
             sizes = (16, 16, 8, 8, 8)
     assert len(sizes) == n
     grids = [np.linspace(0.0, 1.0, s) if s > 1 else np.array([0.0])

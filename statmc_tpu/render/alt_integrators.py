@@ -8,7 +8,7 @@ mapping -- and must NOT be silently aliased onto unidirectional path
 tracing (they produce different images on the scenes they exist for:
 caustics, difficult visibility).
 
-Wavefront TPU drivers live in sibling modules:
+Wavefront drivers live in sibling modules:
   * render/bdpt.py    -- bidirectional path tracer: all (s,t) connection
                          strategies, pbrt's recursive MIS weights, t=1
                          film splats (bdpt.cpp:352-780)

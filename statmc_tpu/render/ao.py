@@ -7,7 +7,7 @@ face-forwarded GEOMETRIC normal (ao.cpp:77 "true geometry, not shading
 geometry"), cosine-weighted by default (`"bool cossample"`), uniform
 otherwise; null-BSDF hits re-spawn through the surface (ao.cpp:67-71).
 
-TPU shape: one lane per pixel; the nsamples occlusion probes run as a
+Wavefront shape: one lane per pixel; the nsamples occlusion probes run as a
 lax.scan of batched any-hit queries over all lanes (each step is one
 full-width occlusion dispatch -- the shadow-ray shape the accelerators
 are optimized for), instead of the reference's per-pixel sample array.

@@ -15,7 +15,7 @@ Re-derivation of the reference's BDPTIntegrator
   arrays with the four endpoint-pdf overrides the reference applies via
   ScopedAssignment, here substituted functionally per (s, t).
 
-TPU shape: one lane = one pixel sample; subpaths are SoA arrays
+Wavefront shape: one lane = one pixel sample; subpaths are SoA arrays
 [P, V, ...] built by a python-static bounce loop (V = maxdepth+2), and
 the (s, t) double loop is unrolled statically -- each strategy is a
 batched connection + one batched shadow ray over all lanes.  t=1

@@ -94,7 +94,7 @@ def gather_materials(scene: sb.SceneTables, mat_id: Array,
                      p: Array | None = None,
                      uv_fp: Array | None = None,
                      uv_axes: Array | None = None) -> MaterialLanes:
-    # One packed [M, 24] row gather instead of 11 per-table gathers: TPU
+    # One packed [M, 24] row gather instead of 11 per-table gathers: device
     # gathers cost per row, not per element (render/intersect.py
     # _assemble_hit rationale); the concatenate is a tiny copy CSE'd
     # across call sites within a jitted step.

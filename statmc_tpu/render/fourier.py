@@ -1,9 +1,9 @@
-"""FourierBSDF: tabulated BSDF reader + TPU evaluation.
+"""FourierBSDF: tabulated BSDF reader + wavefront evaluation.
 
 Replaces the reference's FourierBSDFTable machinery
 (src/materials/fourier.cpp:116-206 Read, src/core/reflection.cpp:322-377
 FourierBSDF::f, src/core/interpolation.cpp:61-103 CatmullRomWeights,
-:348-361 Fourier) with a TPU shape:
+:348-361 Fourier) with a wavefront shape:
 
 * the on-disk SCATFUN v1 format is parsed bit-exactly (same header,
   same subset restrictions: flags==1, 1 or 3 channels, nBases==1);
@@ -11,7 +11,7 @@ FourierBSDF::f, src/core/interpolation.cpp:61-103 CatmullRomWeights,
   one dense [nMu, nMu, nCh, M] block so a ray batch can gather its
   4x4 Catmull-Rom neighborhood with plain vectorized takes -- the
   reference walks a ragged offset table per intersection
-  (reflection.cpp:341-355), which is pointer-chasing the TPU cannot do;
+  (reflection.cpp:341-355), which is pointer-chasing a lockstep wavefront cannot do;
 * series longer than M_CAP are truncated (energy in high-order cosine
   terms of near-specular tables; a warning reports the dropped tail).
 
@@ -367,7 +367,7 @@ def lambertian_file(albedo, n_mu: int = 16) -> tuple[np.ndarray, list]:
 # Importance sampling (reflection.cpp:379-427 FourierBSDF::Sample_f/Pdf,
 # interpolation.cpp:217-290 SampleCatmullRom2D, :292-361 SampleFourier).
 # Newton-bisection loops run a FIXED iteration count over all lanes --
-# the branch-free TPU shape of pbrt's while-loops; 16 iterations halve
+# the branch-free wavefront shape of pbrt's while-loops; 16 iterations halve
 # the bracket to ~1e-5, matching pbrt's 1e-6 break in practice.
 # ---------------------------------------------------------------------------
 

@@ -11,7 +11,7 @@ logistic Np centered on the perfect-specular deflection
 (hair.cpp:116-140), with cuticle-scale tilt rotating the longitudinal
 angles per lobe (hair.cpp:411-415).
 
-TPU shape: every helper is vectorized over the lane axis [R] and
+Wavefront shape: every helper is vectorized over the lane axis [R] and
 branch-free — the reference's `if (v <= .1)` numeric split and the
 per-lobe p dispatch become jnp.where selects / a static python loop of
 length 4; the dphi -> [-pi,pi] remap is a mod, not a while loop.  All
@@ -33,6 +33,8 @@ from typing import Any, NamedTuple
 
 import jax
 import jax.numpy as jnp
+
+from ..core import spectrum as spec
 
 Array = jax.Array
 
@@ -270,8 +272,7 @@ def _ap_pdf(hp: HairLanes, cos_to, gamma_t_T):
     """Lobe-selection pmf from luminance of Ap (hair.cpp:483-508)."""
     T = gamma_t_T
     ap = _ap(cos_to, hp.eta, hp.h, T)
-    lum = jnp.array([0.212671, 0.715160, 0.072169])
-    y = jnp.einsum("...pc,c->...p", ap, lum)
+    y = spec.luminance(ap)  # elementwise: no TF32 product
     return y / jnp.maximum(y.sum(-1, keepdims=True), 1e-12)
 
 

@@ -1,6 +1,6 @@
 """Wavefront statistics-tracking path integrator.
 
-TPU-native re-derivation of the reference's StatPathIntegrator::Li
+Wavefront re-derivation of the reference's StatPathIntegrator::Li
 (/root/reference/src/statistics/statpath.cpp:761-958) including:
 
 * per-bounce radiance estimates Ls[i] with partial throughputs betas[i]
@@ -100,7 +100,7 @@ def _approx_albedo(m: B.MaterialLanes, cos_o: Array) -> Array:
 
     The reference precomputes per-material-family albedo LUTs
     (src/statistics/lut.h, src/statistics/luts/) queried at bounce 0
-    (src/core/material.cpp:63-92).  On TPU a closed-form per-family
+    (src/core/material.cpp:63-92).  On the device a closed-form per-family
     approximation replaces the 8-D gather; the LUT path (with its
     precompute tool) is layered on top for parity runs.
     """
@@ -658,7 +658,7 @@ def trace_wavefront(
 
     There is no counterpart in the reference -- its CPU threads simply
     run variable-length loops (statpath.cpp:761-958); regeneration is
-    the TPU-native answer to lockstep divergence.
+    the wavefront answer to lockstep divergence.
     """
     P = pixel_ids.shape[0]
     NL = cfg.n_ls

@@ -6,12 +6,12 @@ Scene::Intersect/IntersectP (src/core/scene.cpp).  All tests are
 vectorized: a [R]-lane ray batch is tested against primitive sets with
 broadcasting; the BVH (accel/) narrows the candidate set for large
 scenes, while small scenes use the dense all-pairs path, which maps
-perfectly onto the VPU.
+perfectly onto wide vector hardware.
 
 Triangles use Moller-Trumbore on precomputed (p0, e1, e2); the
 reference's watertight transform-to-ray-space test (triangle.cpp:160+)
 guards against edge leaks that matter at f64 CPU precision; at f32 on
-TPU both tests have comparable robustness and MT is 2x cheaper.
+the device both tests have comparable robustness and MT is 2x cheaper.
 """
 from __future__ import annotations
 
@@ -130,10 +130,9 @@ def _assemble_hit(scene: SceneTables, o, d, t_best, kind, idx,
     has_sph = scene.sph_center.shape[0] > 0
 
     if has_tris:
-        # One contiguous-row gather for all triangle attributes: TPU
+        # One contiguous-row gather for all triangle attributes: device
         # gathers cost per row, not per element, so fetching a packed
-        # [T, 27] row beats 12 separate per-field gathers (measured
-        # ~1.6 ms -> ~0.3 ms at 32k rays on v5e).  The concatenate is a
+        # [T, 27] row beats 12 separate per-field gathers.  The concatenate is a
         # [T, 27] copy, negligible and CSE'd across calls within a jit.
         fields = [
             scene.tri_p0, scene.tri_e1, scene.tri_e2,
@@ -363,7 +362,7 @@ def intersect_dense(scene: SceneTables, o: Array, d: Array,
                     want_tangent: bool | None = None) -> Hit:
     """Closest-hit against every primitive via chunked all-pairs testing.
 
-    This is the TPU fast path for small/medium scenes: pure dense VPU
+    This is the dense path for small/medium scenes: pure dense
     arithmetic, no gathers, no divergence (cf. accel/traverse.py)."""
     R = o.shape[0]
     if t_max is None:
@@ -411,7 +410,7 @@ def intersect_dense(scene: SceneTables, o: Array, d: Array,
 
 
 def _bvh_intersect(bvh, scene, o, d, t_max, any_hit=False):
-    """Dispatch over accelerator kinds: fused MXU dense tables
+    """Dispatch over accelerator kinds: fused dense tables
     (accel/fused.FusedTris), the two-level worklist walk
     (accel/twolevel.TwoLevelTris, large scenes), packed one-hot/take
     tables (accel/onehot.OneHotBVH) or the legacy FlatBVH gather walk."""

@@ -10,7 +10,7 @@ statpath.cpp:982).  Here:
   (SpatialLightDistribution::ComputeDistribution,
   lightdistrib.cpp:235-295): per voxel, 128 Halton-placed points sample
   every light through Sample_Li and accumulate luminance(Li)/pdf, with
-  the 0.001*avg minimum-weight floor.  The TPU shape differs in WHERE
+  the 0.001*avg minimum-weight floor.  The wavefront shape differs in WHERE
   the voxels are computed: pbrt builds Distribution1Ds lazily in a
   lock-free hash table as shading points land in voxels (a pointer
   structure XLA cannot express); here the full [V, L] table is
@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from ..core import spectrum as spec
 from ..scene import build as sb
 
 Array = jax.Array
@@ -186,7 +187,7 @@ def make_distribution(scene: sb.SceneTables, strategy: str = "power"
                               (Vc, S, nl, 2)).reshape(-1, 2)
         ng = jnp.zeros_like(p_flat)  # pbrt passes a zero normal
         ls = LT.sample_li(scene, lid, p_flat, ng, uu)
-        y = (ls.li @ jnp.asarray([0.212671, 0.715160, 0.072169]))
+        y = spec.luminance(ls.li)  # elementwise: no TF32 product
         c = jnp.where(ls.pdf > 0, y / jnp.maximum(ls.pdf, 1e-30), 0.0)
         return jnp.sum(c.reshape(Vc, S, nl), axis=1)
 

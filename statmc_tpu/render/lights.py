@@ -27,7 +27,7 @@ Array = jax.Array
 def _light_rows(scene: sb.SceneTables, light_id: Array):
     """One packed row gather for the per-light attributes.
 
-    TPU gathers cost per row, not per element (render/intersect.py
+    Device gathers cost per row, not per element (render/intersect.py
     _assemble_hit rationale): fetching one [L, 14] row beats the 7
     separate per-table gathers sample_li/pdf_li used to issue.  The
     concatenate is a tiny [L, 14] copy, CSE'd across call sites within
@@ -206,7 +206,7 @@ def sample_li(scene: sb.SceneTables, light_id: Array, ref_p: Array,
         w2l = scene.light_w2l[light_id].reshape((-1, 3, 3))
         tex_id = scene.light_tex[light_id]
         # Elementwise 3x3 apply (not einsum): a default-precision dot
-        # lowers to single-pass bf16 on TPU and corrupts the light-space
+        # may run in TF32 on the GPU and corrupt the light-space
         # direction (core/math.py:_apply33 rationale).
         w_out = jnp.sum(w2l * (-wi_p)[:, None, :], axis=-1)
         from ..scene.textures import sample_texture

@@ -24,7 +24,7 @@ Differences from the reference, by design:
   draw-table mode (core/rng.py MODE_LOCKSTEP).
 * One chain per lane: tens of thousands of INDEPENDENT Markov chains
   advance in lockstep, each mutation evaluating f for every chain as
-  one XLA program -- the TPU replacement for pbrt's nChains=1000 CPU
+  one XLA program -- the wavefront replacement for pbrt's nChains=1000 CPU
   tasks.  Independent chains also sidestep pbrt's startup-bias caveat:
   each chain is seeded by resampling the bootstrap distribution.
 * Splatting is a scatter-add into the film (film.cpp AddSplat).

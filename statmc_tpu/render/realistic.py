@@ -17,7 +17,7 @@ Re-derivation of the reference's RealisticCamera
   cos^4(theta) * pupilArea / pupilArea[0] (simple weighting,
   realistic.cpp:779-783).
 
-TPU shape: the lens stack is tiny and static, so the per-element walk
+Wavefront shape: the lens stack is tiny and static, so the per-element walk
 unrolls as a python loop of vectorized ops over all lanes with an
 `alive` mask -- no data-dependent control flow.  All precomputation
 (focus, pupil bounds) runs once on the host in vectorized numpy; the
@@ -29,6 +29,8 @@ from typing import Any, NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
+
+from ..core import math as cm
 
 
 class LensSystem(NamedTuple):
@@ -355,8 +357,9 @@ def generate_rays_realistic(lens: LensSystem, c2w, xres, yres,
     d_cam = d_l * flip
     R = c2w[:3, :3]
     tvec = c2w[:3, 3]
-    o_w = o_cam @ R.T + tvec
-    d_w = d_cam @ R.T
+    # Elementwise 3x3 rotation: a width-3 product may run in TF32.
+    o_w = cm.transform_vector(R, o_cam) + tvec
+    d_w = cm.transform_vector(R, d_cam)
     d_w = d_w / jnp.maximum(
         jnp.linalg.norm(d_w, axis=-1, keepdims=True), 1e-20)
 

@@ -16,10 +16,10 @@ Re-derivation of the reference's SPPMIntegrator
   (sppm.cpp:"update pixel values from this pass's photons");
 * final estimate L = Ld/iterations + tau/(Nphotons_total * pi * R^2).
 
-TPU shape difference: the reference hashes visible points into a grid
+Wavefront shape difference: the reference hashes visible points into a grid
 so each photon touches one cell.  Here the deposit is a DENSE masked
 pairwise pass (photon vertices x visible points, blocked) -- on this
-hardware a regular [Nv, P] distance test on the VPU beats a scattered
+hardware a regular [Nv, P] distance test beats a scattered
 hash walk for the resolutions the reference paper uses; a hashed-sort
 variant is the documented scale-up path for multi-megapixel films.
 Photon RNG is counter-addressed like everything else, so photon paths

@@ -1,13 +1,13 @@
 """Separable BSSRDF device transport: Sample_Sp / Pdf_Sp / Sw lanes.
 
-TPU-native re-derivation of the reference's subsurface sampling scheme
+Wavefront re-derivation of the reference's subsurface sampling scheme
 (/root/reference/src/core/bssrdf.cpp:233-393 Sample_Sp/Pdf_Sp/
 Sample_Sr/Pdf_Sr, src/core/bssrdf.h:86-97 Sw, :153-168 the radiance
 -mode adapter), consumed by the integrator's in-bounce SSS block
 (statpath.cpp:892-926).  The profile tables themselves are the host
 precompute in render/bssrdf.py (photon-beam diffusion).
 
-TPU shape vs the reference:
+Wavefront shape vs the reference:
 
 * pbrt interpolates the (rho, radius) profile with 4x4 spline weights
   per evaluation (TabulatedBSSRDF::Sr).  rho[ch] is a per-MATERIAL

@@ -1,6 +1,6 @@
 """Wavefront volumetric path tracer (volpath) with participating media.
 
-TPU-native re-derivation of the reference's VolPathIntegrator::Li
+Wavefront re-derivation of the reference's VolPathIntegrator::Li
 (/root/reference/src/integrators/volpath.cpp:54-188) and its media:
 
 * HomogeneousMedium::Sample/Tr (src/media/homogeneous.cpp:44-77):
@@ -18,7 +18,7 @@ TPU-native re-derivation of the reference's VolPathIntegrator::Li
 * surface vertices follow volpath.cpp:100-147 (NEE + BSDF sampling +
   etaScale Russian roulette from bounce 4).
 
-TPU shape differences: the recursive per-sample loop is a lax.scan over
+Wavefront shape differences: the recursive per-sample loop is a lax.scan over
 a fixed bounce budget with per-lane masks (medium and surface vertices
 both consume a bounce, volpath.cpp:71); delta/ratio tracking are
 bounded fori_loops (unbiased until the step cap, which is far past any

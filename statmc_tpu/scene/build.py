@@ -1,7 +1,7 @@
 """SceneDescription -> SoA device tables.
 
 The reference instantiates an OO plugin graph (Shape/Primitive/Material
-virtual classes, src/core/api.cpp:MakeScene).  A TPU wavefront tracer
+virtual classes, src/core/api.cpp:MakeScene).  A wavefront tracer
 instead wants flat, statically-shaped structure-of-arrays tables that
 every ray lane indexes by integer id:
 
@@ -631,7 +631,7 @@ def build_scene(desc: SceneDescription,
                 # Every other pbrt shape plugin (disk/cylinder/cone/
                 # paraboloid/hyperboloid/curve/heightfield/loopsubdiv/
                 # nurbs) tessellates into the same flat triangle tables
-                # (scene/tessellate.py) -- the TPU wavefront has one
+                # (scene/tessellate.py) -- the wavefront has one
                 # intersector, not a virtual Shape graph.
                 from .tessellate import tessellate_shape
 

@@ -3,9 +3,9 @@
 The reference implements each shape as an analytic Shape subclass with
 its own Intersect (src/shapes/{disk,cylinder,cone,paraboloid,
 hyperboloid,curve,heightfield,loopsubdiv,nurbs}.cpp).  Per-shape
-analytic intersectors are virtual-dispatch-and-branch machinery a TPU
+analytic intersectors are virtual-dispatch-and-branch machinery a
 wavefront cannot use; here every shape is tessellated at scene-build
-time into the flat triangle tables the fused MXU intersector consumes
+time into the flat triangle tables the fused intersector consumes
 (accel/fused.py), with analytic vertex normals so shading quality
 matches the quadric forms.  Spheres stay analytic (scene/build.py) --
 they are the only shape whose silhouette visibly suffers from

@@ -1,4 +1,4 @@
-"""Texture system: image atlas + procedural textures, SoA for TPU.
+"""Texture system: image atlas + procedural textures, SoA for the wavefront.
 
 The reference's texture plugins (src/textures/, src/core/texture.h,
 src/core/mipmap.h) evaluate per-intersection through virtual
@@ -14,14 +14,14 @@ constants.
 Noise deviates from pbrt in one deliberate way: the lattice hash is an
 arithmetic integer mix instead of pbrt's NoisePerm permutation table
 (texture.cpp:NoisePerm) -- a 512-entry gather per lane is the one
-operation a TPU hates, and the noise statistics (band-limited gradient
+operation a wide accelerator hates, and the noise statistics (band-limited gradient
 noise, same octave weights) are what the textures rely on, not the
 exact lattice values.
 
 MIPmapping (mipmap.h): every image texture carries a box-filtered
 power-of-two pyramid in the atlas (add_image below); lookups blend two
 levels trilinearly with the level chosen from the ray-cone footprint
-(the TPU stand-in for pbrt's ray differentials).  EWA's anisotropic
+(the wavefront stand-in for pbrt's ray differentials).  EWA's anisotropic
 ellipse sampling (mipmap.h:EWA) is approximated by that isotropic cone.
 """
 from __future__ import annotations
@@ -454,7 +454,7 @@ def _trilinear(table: TextureTable, tid, uvs, minor):
 def _ewa_lookup(table: TextureTable, tid, uvs, duv_major, duv_minor):
     """Anisotropic footprint filtering (core/mipmap.h:EWA equivalent).
 
-    TPU shape: pbrt walks every texel in the ellipse's bounding box with
+    Wavefront shape: pbrt walks every texel in the ellipse's bounding box with
     a per-texel Gaussian weight -- a data-dependent loop.  Here the
     ellipse is integrated by EWA_TAPS Gaussian-weighted TRILINEAR taps
     spaced along the major axis, each filtered at the minor-axis width

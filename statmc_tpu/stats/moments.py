@@ -12,7 +12,7 @@ Functional equivalent of the reference's StatTile accumulators
   sharing the same n.
 * ``combine`` implements Chan et al.'s pairwise update so that moment
   states computed over disjoint sample batches (e.g. per device along a
-  sample-sharded mesh axis) merge exactly -- this is the TPU-native
+  sample-sharded mesh axis) merge exactly -- this is the mesh-native
   replacement for the reference's serial tile merge
   (estimator.cpp:341-407); there is nothing like it in the reference
   because a pthread pool never needs it.

@@ -1,4 +1,4 @@
-"""Orbax device-state checkpoint: resumed render == uninterrupted render
+"""Device-state checkpoint: resumed render == uninterrupted render
 bit-for-bit (counter-based RNG makes the comparison exact)."""
 import os
 import tempfile

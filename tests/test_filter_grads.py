@@ -25,7 +25,7 @@ def test_diff_twin_matches_pallas_forward():
     r, dsf = 2, -0.5 / 4.0
     out_ref = FP.filter_apply_diff(fm, mc, d2, gb, valid, r, dsf, gbf)
     out_pal = FP.filter_apply(fm, mc, d2, gb, valid, r, dsf, gbf,
-                              interpret=jax.default_backend() != "tpu")
+                              interpret=True)
     np.testing.assert_allclose(np.asarray(out_ref), np.asarray(out_pal),
                                rtol=1e-4, atol=1e-5)
 
@@ -36,8 +36,7 @@ def test_film_grad_matches_between_paths():
 
     def loss_pal(x):
         return jnp.sum(jnp.sin(FP.filter_apply(
-            x, mc, d2, gb, valid, r, dsf, gbf,
-            interpret=jax.default_backend() != "tpu")))
+            x, mc, d2, gb, valid, r, dsf, gbf, interpret=True)))
 
     def loss_ref(x):
         return jnp.sum(jnp.sin(FP.filter_apply_diff(

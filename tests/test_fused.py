@@ -1,4 +1,4 @@
-"""Fused MXU dense-intersection kernel (accel/fused.py) vs the plain
+"""Fused dense-intersection kernel (accel/fused.py) vs the plain
 Moller-Trumbore dense path (render/intersect.py) as ground truth."""
 import jax
 import jax.numpy as jnp
@@ -78,28 +78,17 @@ def test_pallas_kernel_interpret_matches_ref():
     rng = np.random.default_rng(5)
     p0, e1, e2 = _random_tris(500, rng)
     ft = F.FusedTris.from_tris(p0, e1, e2)
-    R = 2 * F.RAY_TILE
+    R = 8 * F.RAY_BLOCK
     o, d = _random_rays(R, rng)
     t_max = jnp.full((R,), cm.INF)
-    raye, rayp, rayb = F.ray_features(o, d)
-
-    t_ref, id_ref = F._intersect_ref(ft, raye, rayp, t_max)
-
-    G = R // F.RAY_TILE
-    def tiles(x):
-        return x.reshape(G, F.RAY_TILE, F._K).transpose(0, 2, 1)
-    tmax_g = t_max.reshape(G, F.RAY_TILE)
+    t_ref, id_ref = F._intersect_ref(ft, o, d, t_max)
     t_p, id_p = F._intersect_pallas(
         ft.edge_table, ft.plane_table, ft.tile_bounds,
-        tiles(raye), tiles(rayp), tiles(rayb), tmax_g,
-        n_tiles=ft.edge_table.shape[0], interpret=True,
+        F.kernel_rays(o, d, R), t_max, interpret=True,
     )
-    np.testing.assert_allclose(
-        np.asarray(t_p).reshape(-1), np.asarray(t_ref), rtol=1e-6
-    )
-    np.testing.assert_array_equal(
-        np.asarray(id_p).reshape(-1), np.asarray(id_ref)
-    )
+    np.testing.assert_allclose(np.asarray(t_p), np.asarray(t_ref),
+                               rtol=1e-6)
+    np.testing.assert_array_equal(np.asarray(id_p), np.asarray(id_ref))
 
 
 def test_driver_picks_fused_and_renders():

@@ -109,7 +109,7 @@ def test_combine_across_axis_matches_global():
     if jax.device_count() < 4:
         pytest.skip("needs >=4 virtual devices")
     from jax.sharding import Mesh, PartitionSpec as P
-    from jax.experimental.shard_map import shard_map
+    from jax import shard_map
 
     ndev = 4
     rng = np.random.default_rng(5)
@@ -122,7 +122,7 @@ def test_combine_across_axis_matches_global():
 
     fn = shard_map(
         shard_fn, mesh=mesh, in_specs=P("spp"), out_specs=P(),
-        check_rep=False,
+        check_vma=False,
     )
     sharded = fn(jnp.asarray(xs))
     ref = moments.from_batch(jnp.asarray(xs))

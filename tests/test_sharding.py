@@ -2,7 +2,7 @@
 
 The reference never needed this test (single-host pthread pool); for a
 mesh-sharded renderer it is the core correctness property (SURVEY.md §4
-"Implication for the TPU build").
+"Implication for the wavefront build").
 """
 import tempfile
 

@@ -9,7 +9,7 @@ one-dot epilogue reproduces the fused epilogue's expression order, so
 import numpy as np
 import jax.numpy as jnp
 
-from statmc_tpu.accel.fused import FusedTris, ray_features, _intersect_ref
+from statmc_tpu.accel.fused import FusedTris, _intersect_ref
 from statmc_tpu.accel import twolevel as TL
 from statmc_tpu.accel.twolevel import TwoLevelTris, intersect_twolevel
 
@@ -37,8 +37,7 @@ def test_twolevel_matches_dense_fused():
     o, d = _random_rays(1024)
     t_max = jnp.full((1024,), 1e30)
 
-    raye, rayp, _ = ray_features(o, d)
-    t_ref, id_ref = _intersect_ref(ft, raye, rayp, t_max)
+    t_ref, id_ref = _intersect_ref(ft, o, d, t_max)
     id_ref = np.where(np.asarray(id_ref) >= 0,
                       np.asarray(ft.perm)[np.maximum(np.asarray(id_ref), 0)],
                       -1)
@@ -86,8 +85,7 @@ def test_worklists_are_conservative():
     R = TL.RT_WALK
     o, d = _random_rays(R, seed=6)
     t_max = jnp.full((R,), 1e30)
-    raye, rayp, _ = ray_features(o, d)
-    t_ref, id_packed = _intersect_ref(ft, raye, rayp, t_max)
+    t_ref, id_packed = _intersect_ref(ft, o, d, t_max)
     vote_f = TL._votes_xla(tl.bounds, o, d, t_max)
     G = vote_f.shape[0]
     vote = vote_f.reshape(G, tl.n_sub, tl.fsub).any(-1)
@@ -121,7 +119,7 @@ def test_compact_overflow_falls_back_dense():
 
 def test_pack_submask_roundtrip():
     """Bit-packed fine votes must decode back to the vote row (the walk
-    kernel reads these words bit-by-bit from SMEM)."""
+    walk reads these words bit by bit)."""
     rng = np.random.default_rng(11)
     nf = 203
     vote = rng.random((5, nf)) < 0.3
@@ -130,37 +128,3 @@ def test_pack_submask_roundtrip():
         for f in range(nf):
             bit = (words[g, f // 32] >> (f % 32)) & 1
             assert bool(bit) == bool(vote[g, f]), (g, f)
-
-
-def test_cull_pallas_matches_xla():
-    """The Pallas subtile-cull kernel (interpret mode on CPU) votes for
-    exactly the same subtiles as the XLA slab test it replaces."""
-    rng = np.random.default_rng(3)
-    T = 700
-    p0 = rng.random((T, 3)).astype(np.float32) * 10
-    e1 = rng.random((T, 3)).astype(np.float32)
-    e2 = rng.random((T, 3)).astype(np.float32)
-    tl = TwoLevelTris.from_tris(p0, e1, e2)
-
-    R = 2 * TL.RT_WALK
-    o = (rng.random((R, 3)).astype(np.float32) * 12 - 1)
-    d = rng.random((R, 3)).astype(np.float32) - 0.5
-    d /= np.linalg.norm(d, axis=-1, keepdims=True)
-    t_max = np.full((R,), 1e30, np.float32)
-    t_max[::7] = 0.0  # dead lanes never vote
-
-    o_j, d_j, tm_j = jnp.asarray(o), jnp.asarray(d), jnp.asarray(t_max)
-    vote_x = TL._votes_xla(tl.bounds, o_j, d_j, tm_j)
-
-    inv = jnp.where(jnp.abs(d_j) > 1e-12,
-                    1.0 / jnp.where(d_j == 0, 1.0, d_j),
-                    jnp.where(d_j < 0, -1e12, 1e12))
-    rays_t = jnp.concatenate(
-        [o_j, inv, tm_j[:, None], jnp.zeros((R, 1))],
-        axis=-1).reshape(-1, TL.RT_WALK, 8)
-    nf = tl.n_sub * tl.fsub
-    live = (jnp.max(tm_j.reshape(-1, TL.RT_WALK), axis=1) > 0
-            ).astype(jnp.int32)
-    vote_p = TL._votes_pallas(tl.bounds_planar, rays_t, live,
-                              interpret=True)[:, :nf] > 0.5
-    np.testing.assert_array_equal(np.asarray(vote_p), np.asarray(vote_x))
